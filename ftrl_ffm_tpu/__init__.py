@@ -1,11 +1,11 @@
-"""ftrl_ffm_tpu — a TPU-native FTRL-Proximal CTR-training framework.
+"""ftrl_ffm_tpu — an FTRL-Proximal CTR-training framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 C++ framework massquantity/Ftrl-FFM (LR / FM / FFM binary classifiers trained
 with FTRL-Proximal on libsvm / libffm data, online or offline, with
 zstd-compressed model serialization).
 
-Design notes (TPU-first, not a port):
+Design notes (batched accelerator design, not a port):
   * The reference trains one sample at a time across CPU threads with
     per-feature-row mutexes (hogwild-style).  Here the same math is expressed
     as deterministic **mini-batch FTRL**: gather touched rows -> compute

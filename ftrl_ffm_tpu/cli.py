@@ -2,7 +2,7 @@
 
 reference: src/main.cpp:13-34, src/include/utils/cmd_option.h:7-27 (help
 text), src/utils/cmd_option.cpp:61-114 (manual --key value parsing).  Same
-flags and defaults, plus TPU-native extras (batch size, mesh shape, AUC).
+flags and defaults, plus batching, mesh shape, dtypes and AUC options.
 
 Usage:
     python -m ftrl_ffm_tpu --train_data data.txt --model_type FFM ...
@@ -32,8 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ftrl_ffm_tpu",
         description=(
-            "TPU-native FTRL-Proximal training for LR / FM / FFM binary "
-            "classifiers on libsvm / libffm data."
+            "FTRL-Proximal training for LR / FM / FFM binary classifiers "
+            "on libsvm / libffm data (JAX; fused kernels on the GPU)."
         ),
     )
     # ---- reference flags (src/include/utils/cmd_option.h:49-63 defaults) ----
@@ -57,7 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cmd", type=_str2bool, default=False,
                    help="read training stream from stdin")
     p.add_argument("--file_type", default="", help="libsvm | libffm (auto-detect)")
-    # ---- TPU-native extras ----
+    # ---- extras beyond the reference's flags ----
     p.add_argument("--batch_size", type=int, default=4096, help="global batch size")
     p.add_argument("--max_nnz", type=int, default=0,
                    help="pad/truncate nnz per sample (0 = sniff from data)")
@@ -76,7 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "path (bfloat16 halves the dominant scatter bytes)")
     p.add_argument("--use_pallas", default="auto",
                    choices=("auto", "on", "off"),
-                   help="fused TPU kernel for the FFM step (auto = TPU only)")
+                   help="hand-written GPU kernels (auto = on the GPU, XLA "
+                        "elsewhere; on = require them, an error without a "
+                        "GPU)")
     p.add_argument("--compact_transfer", type=_str2bool, default=True,
                    help="narrow host->device upload dtypes (lossless only)")
     p.add_argument("--steps_per_call", type=int, default=1,
@@ -153,13 +155,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--predict_output", default="predictions.txt",
                    help="output path for --predict_data probabilities "
                         "('-': stdout)")
-    # ---- multi-host (SPMD over DCN; one process per host) ----
+    # ---- multi-process (SPMD; one process per host, or per card) ----
     p.add_argument("--coordinator_address", default="",
                    help="jax.distributed coordinator host:port (multi-host)")
     p.add_argument("--num_processes", type=int, default=0,
                    help="total process count for jax.distributed")
     p.add_argument("--process_id", type=int, default=-1,
                    help="this process's id for jax.distributed")
+    p.add_argument("--local_device_ids", default="",
+                   help="comma-separated local GPU ids this process drives; "
+                        "several processes on one host must each get their "
+                        "own (e.g. --local_device_ids 2 for the third "
+                        "process); default: every visible GPU")
     return p
 
 
@@ -176,20 +183,30 @@ _NON_CONFIG_FLAGS = (
     "coordinator_address",
     "num_processes",
     "process_id",
+    "local_device_ids",
 )
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    from ftrl_ffm_tpu.train import enable_compilation_cache
+
+    enable_compilation_cache()
     if args.coordinator_address:
-        # Multi-host SPMD: every host runs this same CLI; jax.distributed
-        # wires the DCN mesh (the reference is single-process only — §2c).
+        # Multi-process SPMD: every process runs this same CLI;
+        # jax.distributed wires the global mesh (the reference is
+        # single-process only — SURVEY §2c).  A JAX process takes most of
+        # each card it opens, so processes sharing a host must each name
+        # their own card(s).
         import jax
 
         jax.distributed.initialize(
             coordinator_address=args.coordinator_address,
             num_processes=args.num_processes or None,
             process_id=None if args.process_id < 0 else args.process_id,
+            local_device_ids=[
+                int(i) for i in args.local_device_ids.split(",")
+            ] if args.local_device_ids else None,
         )
     kwargs = {k: v for k, v in vars(args).items() if k not in _NON_CONFIG_FLAGS}
     cfg = Config(**kwargs)

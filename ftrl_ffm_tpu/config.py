@@ -1,7 +1,7 @@
 """Configuration for ftrl_ffm_tpu.
 
 Reproduces the reference flag surface (reference: src/include/utils/cmd_option.h:29-63,
-README.md:44-80) plus TPU-native extras (batching, mesh, dtypes).
+README.md:44-80) plus batching, mesh and dtype options.
 """
 
 from __future__ import annotations
@@ -32,13 +32,12 @@ class Config:
     cmd: bool = False                # read training stream from stdin
     file_type: str = ""              # "libsvm" | "libffm" | "" = auto-detect
 
-    # ---- TPU-native extras ----
+    # ---- extras beyond the reference's flags ----
     batch_size: int = 4096           # samples per device step (global batch)
     max_nnz: int = 0                 # fixed nnz padding per sample; 0 = sniff from data
     steps_per_call: int = 1          # train steps per device dispatch; >1 scans
                                      # S batches per dispatch (useful when
-                                     # dispatch latency dominates tiny steps;
-                                     # measured best at 1 for B=8192 FFM)
+                                     # dispatch latency dominates tiny steps)
     seed: int = 42
     # Semantics of L1 on the factor tables:
     #   "reference": factor weight = closed_form(n, z) always.  Matches the
@@ -54,7 +53,10 @@ class Config:
     # forward weights are quantized.  bfloat16 halves the dominant
     # gather/scatter HBM traffic; weights round to 8 mantissa bits.
     table_dtype: str = "float32"     # "float32" | "bfloat16"
-    use_pallas: str = "auto"         # "auto" (TPU only) | "on" | "off"
+    # Hand-written GPU kernels (ops/ffm_pallas.py: the fused FFM step and
+    # eval): "auto" = on the GPU, the XLA formulation elsewhere; "on" =
+    # required (an error without a GPU); "off" = always XLA
+    use_pallas: str = "auto"         # "auto" | "on" | "off"
     # Compact host->device transfer (lossless): fields int8/int16, feature
     # ids per-column uint16 deltas off an int32 base row, values int8 when
     # integral / bfloat16 when exactly representable / f32 otherwise,
@@ -126,10 +128,10 @@ class Config:
     shuffle: bool = True             # offline mode epoch shuffle
     # Device-resident datasets: upload the parsed dataset to HBM once, then
     # run every epoch's batch gather + train steps entirely on device (host
-    # supplies only a 4-byte/sample index row per step) — the TPU-native
+    # supplies only a 4-byte/sample index row per step) — the device
     # form of the reference's in-memory offline mode
     # (src/task/ftrl_offline.cpp:21-42 loads everything into RAM; here
-    # "memory" is HBM).  Offline epochs shuffle per `shuffle`; ONLINE train
+    # "memory" is device memory).  Offline epochs shuffle per `shuffle`; ONLINE train
     # epochs replay the cache in FILE ORDER — identical batches to the
     # streamed single-pass-per-epoch semantics (the reference rewinds and
     # re-reads the same file each epoch, src/task/ftrl_online.cpp:42-58),
@@ -174,8 +176,8 @@ class Config:
     # Device-feed threads.  1 = the single background uploader thread
     # (train.py::_feed).  >1 = order-preserving interleaved feeders: each
     # thread runs the FULL compact+upload for alternating whole batches —
-    # no per-batch stage handoff (the compact/upload pipeline split was
-    # measured WORSE, see train.py::_device_feed) — with a reorder buffer
+    # no per-batch stage handoff (a compact/upload pipeline split was
+    # slower, see train.py::_device_feed) — with a reorder buffer
     # so the consumer still sees stream order (FTRL update order is
     # semantics).  Multi-host always pins 1: the dynamic-narrowing
     # observation protocol needs strictly ordered per-batch observation.
@@ -236,9 +238,9 @@ class Config:
     # [n_fields, field_pad) simply never occur: all their contributions are
     # provably zero (no occurrence selects them), so results are identical
     # to the unpadded model while every factor row becomes an exact
-    # multiple of the 128-lane TPU vector tile.  Aligned rows make XLA's
-    # natural entry layout row-major (no transpose copies, no layout pins)
-    # and give the gather/scatter exact-vreg rows.  Adopted only when the
+    # multiple of 128 floats.  Aligned rows make XLA's natural entry
+    # layout row-major (no transpose copies) and give the gather/scatter
+    # whole aligned rows.  Adopted only when the
     # row overhead stays <= 15% (e.g. K=16, C=39 -> C'=40, +2.6%); the
     # first dead lane additionally carries the linear-table gradient so a
     # single scatter updates both tables (see ftrl.py::

@@ -26,8 +26,8 @@ import struct
 import jax.numpy as jnp
 import ml_dtypes  # registers bfloat16 with numpy for checkpoint round-trips
 import numpy as np
-import zstandard
 
+from ftrl_ffm_tpu.io import zstd
 from ftrl_ffm_tpu.models.base import ModelState
 
 MAGIC = b"FTRLTPU1"
@@ -171,18 +171,17 @@ def save_checkpoint(
         writers.append(chunks)
 
     header = json.dumps(meta).encode()
-    cctx = zstandard.ZstdCompressor(level=level)
     # crash-atomic: compress into a sibling temp file, fsync, then rename —
     # a crash mid-write leaves the previous checkpoint intact (at worst a
     # stray .tmp file), never a truncated checkpoint at `path`
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
-            with cctx.stream_writer(f, closefd=False) as zf:
+            with zstd.Writer(f, level) as zf:
                 zf.write(MAGIC + struct.pack("<I", len(header)) + header)
                 for chunks in writers:
                     for chunk in chunks():
-                        zf.write(np.ascontiguousarray(chunk).tobytes())
+                        zf.write(np.ascontiguousarray(chunk))
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
@@ -197,8 +196,7 @@ def save_checkpoint(
 def load_checkpoint(path: str) -> tuple[ModelState, dict]:
     """Stream-read a checkpoint: each table decompresses directly into its
     preallocated buffer (no whole-file decompressed copy)."""
-    dctx = zstandard.ZstdDecompressor()
-    with open(path, "rb") as f, dctx.stream_reader(f) as zf:
+    with open(path, "rb") as f, zstd.Reader(f) as zf:
         head = zf.read(12)
         if head[:8] != MAGIC:
             raise ValueError(f"{path}: not a ftrl_ffm_tpu checkpoint")
@@ -235,7 +233,7 @@ def export_reference_model(path: str, bias, lin_w, vec_w=None, level: int = 3):
         parts.append(np.asarray(vec_w, "<f4").ravel())
     raw = np.concatenate(parts).tobytes()
     with open(path, "wb") as f:
-        f.write(zstandard.ZstdCompressor(level=level).compress(raw))
+        f.write(zstd.compress(raw, level))
     import sys
 
     # stderr: stdout may be carrying the --predict_output - probability
@@ -257,7 +255,7 @@ def import_reference_model(path: str, n_feats: int, row_width: int = 0):
     possible is the exact float count — enforced here: a silent slice of a
     mismatched blob would scramble every weight past the first table."""
     with open(path, "rb") as f:
-        raw = zstandard.ZstdDecompressor().decompress(f.read())
+        raw = zstd.decompress(f.read())
     flat = np.frombuffer(raw, "<f4")
     expect = 1 + n_feats + n_feats * row_width
     if flat.size != expect:

@@ -106,16 +106,15 @@ class TrainOut(NamedTuple):
 
 
 def dec6_decode(k: jax.Array) -> jax.Array:
-    """Correctly-rounded k/1e6 (k int < 2^24) from f32 mul/add only —
-    TPU's hardware division is reciprocal-based and lands 1 ulp off for
-    ~3.1% of ks (525,149 of 2^24, measured exhaustively on-chip), so a
-    plain divide cannot reproduce the host's strtof-equal division.  This
-    sequence can: q0 = k·r, then one correction with the EXACT residual
-    k − q0·1e6 obtained via a Veltkamp two-product (no FMA needed).
-    Verified exhaustively on the dev v5e: 0 mismatches over all 2^24 ks
-    (BASELINE.md round 5); Trainer._dec6_device_ok re-verifies a sample
-    per process before the tier may engage.  Barriers keep XLA from
-    folding the constants back into the 1-ulp reciprocal form."""
+    """Correctly-rounded k/1e6 (k int < 2^24) from f32 mul/add only.
+    A device's division may be reciprocal-based and land 1 ulp off for a
+    few percent of ks, so a plain divide need not reproduce the host's
+    strtof-equal division.  This sequence does on any IEEE f32 device:
+    q0 = k·r, then one correction with the EXACT residual k − q0·1e6
+    obtained via a Veltkamp two-product (no FMA needed).
+    Trainer._dec6_device_ok re-verifies a sample per process before the
+    tier may engage (chip_smoke.py checks all 2^24 ks on the GPU).
+    Barriers keep XLA from folding the constants back into a reciprocal."""
     kf = k.astype(jnp.float32)
     d = jax.lax.optimization_barrier(jnp.float32(1e6))
     r = jax.lax.optimization_barrier(jnp.float32(1e-6))
@@ -230,8 +229,8 @@ def take_cached(ds, ix, n_real) -> Batch:
     are then re-emitted in the streamed feeder's marker shapes, so
     widen_batch and the kernels keep the exact canonical-content
     specializations ([0, F] fields = iota, [B, 0] vals = ones) that the
-    per-batch compact path gets — losing them costs ~40% step time on
-    canonical CTR data (measured: the noncanon bench row).  Runs unsharded
+    per-batch compact path gets (losing them slows every step on
+    canonical CTR data).  Runs unsharded
     or per-device inside shard_map (ix is then the device's slice of the
     batch's index row)."""
     fields, feats, vals, y = ds
@@ -268,8 +267,7 @@ def state_formats(state: ModelState, device=None):
     aligned, where row-major is the natural choice — the pin then just
     locks it in).  Every op inside the step wants row-major, so an
     un-pinned mis-laid-out step pays six table-sized transpose copies per
-    call (measured 4.6 ms of a 43 ms step at R=100k on v5e).  Pinning
-    Format(Layout((0, 1))) on the donated
+    call.  Pinning Format(Layout((0, 1))) on the donated
     state keeps gather -> kernel -> scatter -> closed-form in one layout end
     to end.  Narrow rows (FM's E=k) genuinely belong column-major — lane
     padding would blow the table up — so we only pin when the row pads
@@ -423,8 +421,8 @@ class Model:
 
     def _emits_combined(self) -> bool:
         """True when the grad producer can emit the combined (g || g^2)
-        layout for free (the fused Pallas kernel writes it from VMEM).  The
-        XLA fallback would need a materializing concat, so it prefers split
+        layout for free (the fused kernel writes it directly).  The XLA
+        formulation would need a materializing concat, so it prefers split
         payloads + the two-scatter update."""
         return False
 
@@ -511,18 +509,18 @@ class Model:
 
         if vec_kind == "inplace" and self._lin_mirror_maintained():
             # Huge-table path with a dead-lane linear mirror: every payload
-            # (Pallas aug_lane / XLA grad_lane) already carries g_lin, so the
+            # (kernel aug_lane / XLA grad_lane) already carries g_lin, so the
             # in-place factor update maintains complete linear stats in the
-            # mirror lane.  Skip the separate [nnz, 2] linear scatter
-            # (measured ~14 ms/step at R=1M) — the lin arrays ride stale and
-            # are reconciled from the mirror at checkpoint/export boundaries
+            # mirror lane.  Skip the separate [nnz, 2] linear scatter — the
+            # lin arrays ride stale and are reconciled from the mirror at
+            # checkpoint/export boundaries
             # (Trainer._maybe_sync_lin -> sync_lin_from_mirror).
             lin_n, lin_z, lin_w = state.lin_n, state.lin_z, state.lin_w
         else:
             # Linear table: g = gs * x (reference:
             # src/model/ftrl_model.cpp:66-77).  Flat [nnz] streams keep the
             # gather->kernel->scatter chain in one row-major 2-D layout
-            # (avoids relayout copies on TPU).
+            # (no relayout copies).
             g_lin = (gs[:, None] * batch.vals).reshape(-1)
             gg2_lin = jnp.stack([g_lin, g_lin * g_lin], axis=-1)  # [nnz, 2]
             lin_kind = select_update_kind(

@@ -17,7 +17,6 @@ typo we deliberately do NOT reproduce.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from ftrl_ffm_tpu.models.base import Batch, Model, ModelState
@@ -48,12 +47,9 @@ class FFM(Model):
         )
 
     def _use_pallas(self) -> bool:
-        mode = self.cfg.use_pallas
-        if mode == "on":
-            return True
-        if mode == "off":
-            return False
-        return jax.default_backend() == "tpu"
+        from ftrl_ffm_tpu.ops.ffm_pallas import resolve_use_pallas
+
+        return resolve_use_pallas(self.cfg.use_pallas)
 
     def _emits_combined(self) -> bool:
         return self._use_pallas()
@@ -69,25 +65,21 @@ class FFM(Model):
         payload_dtype=None,
         aug: bool = False,
     ):
-        """Fused Pallas path on TPU: one VMEM pass computes logits and the
-        FTRL payload — no [B, F, C*K] HBM intermediates and no concat (the
-        kernel writes the combined [B*F, 2E] layout, or separate g/g2 for
-        the huge-table in-place update, directly; payload_dtype bf16 halves
-        its write + the scatter's read/RMW bytes)."""
-        b = batch.feats.shape[0]
-        if not self._use_pallas() or b % 8:
+        """Fused kernel path on the GPU: one pass per sample computes the
+        logit and the FTRL payload, with no [B, F, C*K] intermediates in
+        device memory and no concat (the kernel writes the combined
+        [B*F, 2E] layout, or separate g/g2 for the huge-table in-place
+        update, directly; payload_dtype bf16 halves its write and the
+        scatter's read bytes)."""
+        if not self._use_pallas():
             return super()._train_grads(state, batch, split, payload_dtype)
         from ftrl_ffm_tpu.ops.ffm_pallas import ffm_fused_logits_grads
 
         lane = self._lin_lane()
         # flat [B*F, E] gather: single 2-D row-major stream into the kernel
         v = self._gather_vec(state, batch.feats.reshape(-1))
-        # Mirrored linear weights read from the rows just gathered — no
-        # separate linear gather.  Computed OUTSIDE the kernel: an extra
-        # reduction inside the Mosaic body re-triggered the (runtime-flaky)
-        # gather -> custom-call device deadlock; the XLA column slice +
-        # reduce is cheap and keeps the kernel byte-identical to the
-        # proven one.
+        # mirrored linear weights read from the rows just gathered: no
+        # separate linear gather
         w = self._w_lin_from_rows(state, v, batch, self._lin_read_lane())
         lin = linear_logits(w, batch.vals, self.bias_weight(state))
         do_aug = aug and not split and lane >= 0
@@ -100,7 +92,6 @@ class FFM(Model):
             batch.sample_w,
             self.field_pad,
             self.n_factors,
-            compute_grads=True,
             combined_out=not split,
             out_dtype=payload_dtype or jnp.float32,
             # linear grad rides in dead lane (k=0, c=n_fields) of the
@@ -139,7 +130,7 @@ class FFM(Model):
 
     def _logits_and_grads(self, state: ModelState, batch: Batch, train: bool):
         read_lane = self._lin_read_lane()
-        if not train and self._use_pallas() and batch.feats.shape[0] % 8 == 0:
+        if not train and self._use_pallas():
             # inference-only fused kernel: the serving/eval hot path
             from ftrl_ffm_tpu.ops.ffm_pallas import ffm_fused_logits
 

@@ -1,6 +1,6 @@
 // Fast libsvm / libffm chunk parser.
 //
-// TPU-native counterpart of the reference's C++ line parsers
+// Batched counterpart of the reference's C++ line parsers
 // (reference: src/data/parser.cpp:11-41 libsvm, :62-103 libffm), re-designed
 // for batch semantics: one pass over a whole text chunk writes directly into
 // padded fixed-shape [cap, max_nnz] arrays ready for device upload.  Called
@@ -285,8 +285,8 @@ inline uint16_t bf16_round(float v) {
 // Per-range analyze: per-column id lo/hi (sentinel excluded) + padding
 // flag, and the three value-exactness facts.  Every loop is branchless and
 // single-domain (ints or floats, never mixed) with __restrict__ pointers —
-// gcc auto-vectorizes each; the first fused scalar/branchy version of this
-// measured SLOWER than the numpy passes it replaces (8 ns/element).
+// gcc auto-vectorizes each; a fused scalar/branchy version of this was
+// slower than the numpy passes it replaces.
 void compact_scan_range(const int32_t* __restrict__ feats,
                         const float* __restrict__ vals,
                         const int32_t* __restrict__ fields,  // nullable

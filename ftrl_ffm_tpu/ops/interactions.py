@@ -1,9 +1,9 @@
 """Batched LR / FM / FFM logit + gradient math (pure XLA formulation).
 
 These re-express the reference's per-sample scalar loops as fixed-shape,
-batch-parallel tensor algebra so XLA can tile them onto the MXU/VPU.  A
-Pallas fused version of the FFM interaction lives in ops/ffm_pallas.py; this
-module is the always-available reference path and the numerical ground truth.
+batch-parallel tensor algebra that XLA compiles for any backend.  Fused GPU
+kernels for the FFM interaction live in ops/ffm_pallas.py; this module is
+the always-available path and their numerical ground truth.
 
 Shapes:  B = batch, F = max nnz per sample (padded), C = n_fields,
 K = n_factors.  Padded entries carry value 0.0 (the reference drops
@@ -71,7 +71,7 @@ def ffm_logits_and_grads(
 
     The reference loops over pairs m < n and dots v_i[field_j] with
     v_j[field_i] (src/model/ffm.cpp:57-70).  Rewritten as a field-bucketed
-    contraction so the O(F^2 K) pair loop becomes two MXU matmuls:
+    contraction so the O(F^2 K) pair loop becomes two batched matmuls:
 
         S[b, c, d, k] = sum_{m: field_m = c} x_m * v[b, m, d, k]
         pair_logit_b  = 0.5 * ( sum_{c,d,k} S[b,c,d,k] * S[b,d,c,k]
@@ -83,13 +83,10 @@ def ffm_logits_and_grads(
         dlogit/dv[b,m,c,k] = x_m * ( S[b, c, field_m, k]
                                      - [c == field_m] * x_m * v[b,m,c,k] )
 
-    TPU layout strategy: every big tensor keeps the fused row width E = C*K
-    as its minor dimension (E is exactly lane-aligned at 640 for C'=40,
-    K=16 under Config.field_pad row padding; a
-    bare K=16 minor would waste 7/8 of each 128-lane vector tile).  The
-    one-hot selections over the field axis are expressed as MXU contractions
-    and *elementwise* one-hot masks — no take_along_axis / generic gathers,
-    which lower poorly on TPU.
+    Layout: every big tensor keeps the fused row width E = C*K as its minor
+    dimension (E = 640 for C'=40, K=16 under Config.field_pad row padding),
+    and the one-hot selections over the field axis are contractions and
+    *elementwise* one-hot masks — no take_along_axis / generic gathers.
 
     Args:
       v:      [B, F, E] gathered factor rows, E = n_fields * n_factors, in
@@ -129,9 +126,9 @@ def ffm_logits_and_grads(
     xoh = onehot * vals[..., None]  # [B, F, C]
     # s[b, c, (k,d)] = S[c, d, k] = sum_{m: field_m = c} x_m * v_m[factor k,
     # field d] — one batched matmul contracting the occurrence axis.
-    # precision=HIGHEST: on TPU an f32 einsum defaults to bf16 MXU multiplies;
+    # precision=HIGHEST: an f32 einsum may otherwise run in TF32 on the GPU;
     # f32 reference parity is sensitive to the lost mantissa bits, and this
-    # module is the declared numerical ground truth for the Pallas kernel.
+    # module is the declared numerical ground truth for the fused kernels.
     s = jnp.einsum(
         "bmc,bme->bce", xoh, v, precision=jax.lax.Precision.HIGHEST
     )  # [B, C, E]

@@ -3,14 +3,13 @@
 The reference stores each feature's factor row field-major: slot
 (field c, factor k) = c * n_factors + k (reference: src/model/ffm.cpp:63-65).
 This framework stores rows **factor-major** internally: slot (k, c) =
-k * field_pad + c.  Reason: the Pallas interaction kernel processes one
-factor k at a time, and in k-major layout the per-k slice is a contiguous
-lane range [k*C', (k+1)*C') — Mosaic supports contiguous lane slices but not
-the minor-dim-splitting reshape the field-major layout would require.
+k * field_pad + c.  Reason: the fused interaction kernel works one factor
+k at a time, and in k-major layout the per-k slice is one contiguous column
+range [k*C', (k+1)*C') of the row.
 
 field_pad >= n_fields pads each per-factor block with dead lanes (fields
-that never occur) so the physical row width is a 128-lane multiple — see
-Config.field_pad.  Dead lanes are dropped on export and zero-filled on
+that never occur) so the physical row width is a multiple of 128 floats —
+see Config.field_pad.  Dead lanes are dropped on export and zero-filled on
 import.
 
 Row width and all per-coordinate FTRL math are layout-agnostic; only

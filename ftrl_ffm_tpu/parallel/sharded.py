@@ -213,7 +213,7 @@ class ShardedStep:
         feats, vals, y — inert pad rows, see Trainer._ensure_device_cache);
         each step receives only the [B] int32 permutation row, sharded over
         the batch axes, and gathers its local batch slice on device before
-        running the ordinary sharded step body (the TPU-native form of the
+        running the ordinary sharded step body (the device form of the
         reference's in-memory offline task, src/task/ftrl_offline.cpp:21-42).
 
         Two layouts (Config.device_cache_layout):
@@ -227,9 +227,8 @@ class ShardedStep:
           per-slice shuffle — the cached twin of the multi-host streamed
           semantics (each process owns a byte-range slice).
 
-        One dispatch per step, donated state; per-step [B] row upload —
-        the scan-grouped and device-resident-index-table forms both
-        measured slower (train.py::_gather_train_one_impl)."""
+        One dispatch per step, donated state; per-step [B] row upload
+        (see train.py::_gather_train_one_impl)."""
         from ftrl_ffm_tpu.models.base import take_cached
 
         rep = layout == "replicate"
@@ -409,10 +408,10 @@ class ShardedStep:
         """Route combined payloads to owners, accumulate, closed-form pass.
 
         Huge shards on a (1, N) mesh take the in-place form (z-scatter +
-        single accumulator + streamed closed-form pass,
+        single accumulator + in-place closed-form pass,
         ftrl.py::dense_ftrl_update_inplace): the dense [rows_local, 2D]
-        accumulator would not fit HBM at production shard sizes (e.g.
-        R=100M over 64 chips -> 7.7 GB), and with mesh_data == 1 there is
+        accumulator would not fit device memory at production shard sizes
+        (e.g. R=100M over 64 devices -> 7.7 GB), and with mesh_data == 1 there is
         no cross-replica psum to forbid in-place mutation."""
         m, rl, k = self.n_shards, self.rows_local, self.route_k
         d2 = gg2.shape[-1]
@@ -435,8 +434,7 @@ class ShardedStep:
                 # budget) also take this form: it allocates ONE [rl, D]
                 # accumulator — half the dense [rl, 2D] fall-through below,
                 # which is exactly the footprint the largest shards cannot
-                # afford.  (A routed sorted-sparse form was measured strictly
-                # slower at every shard size — BASELINE.md "Lazy-w at R=1M".)
+                # afford.
                 # rt.recv's empty-slot sentinel is rl == shape[0]: dropped
                 return dense_ftrl_update_inplace(
                     n_tab, z_tab, w_tab, rt.recv,
@@ -483,31 +481,30 @@ class ShardedStep:
             return self._routed_rows(state.lin_w, rt).reshape(shape)
         return self._lookup_linear(state.lin_w, ids_phys.reshape(shape))
 
-    def _use_pallas(self, b_local: int) -> bool:
-        cfg = self.cfg
-        return cfg.model_type == "FFM" and b_local % 8 == 0 and (
-            cfg.use_pallas == "on"
-            or (cfg.use_pallas == "auto" and jax.default_backend() == "tpu")
+    def _use_pallas(self) -> bool:
+        from ftrl_ffm_tpu.ops.ffm_pallas import resolve_use_pallas
+
+        return self.cfg.model_type == "FFM" and resolve_use_pallas(
+            self.cfg.use_pallas
         )
 
     def _model_logits_gg2(self, batch: Batch, lin, v, train: bool):
         """(logits, combined payload or None) from gathered rows.
 
-        FFM on TPU routes through the fused Pallas kernel (ops/ffm_pallas.py)
+        FFM on the GPU routes through the fused kernel (ops/ffm_pallas.py)
         — pallas_call composes with shard_map since it is per-device local
         compute; collectives stay outside the kernel."""
         cfg = self.cfg
         b_local = batch.feats.shape[0]
         if cfg.model_type == "LR":
             return lin, None
-        if cfg.model_type == "FFM" and self._use_pallas(b_local):
+        if cfg.model_type == "FFM" and self._use_pallas():
             if train:
                 from ftrl_ffm_tpu.ops.ffm_pallas import ffm_fused_logits_grads
 
                 return ffm_fused_logits_grads(
                     v, batch.fields, batch.vals, lin, batch.y, batch.sample_w,
-                    cfg.field_pad, cfg.n_factors, compute_grads=True,
-                    combined_out=True,
+                    cfg.field_pad, cfg.n_factors, combined_out=True,
                     # payload fold maintains the dead-lane linear mirror
                     # (lin itself arrives precomputed, so lin_lane stays off)
                     aug_lane=self._lin_lane,

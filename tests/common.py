@@ -33,3 +33,17 @@ def write_fixture(path, file_type: str = "libffm", seed: int = 0) -> str:
     with open(path, "w") as f:
         f.write(text)
     return str(path)
+
+
+def interpret_kernels(monkeypatch) -> None:
+    """Run the GPU kernels in Pallas interpret mode on the CPU, and let
+    use_pallas resolve to them as it does on a GPU."""
+    import functools
+
+    import ftrl_ffm_tpu.ops.ffm_pallas as fp
+
+    for name in ("ffm_fused_logits_grads", "ffm_fused_logits"):
+        monkeypatch.setattr(
+            fp, name, functools.partial(getattr(fp, name), interpret=True)
+        )
+    monkeypatch.setattr(fp, "available", lambda: True)

@@ -3,7 +3,7 @@
 Written independently from the C++ (no code copied) purely as a test oracle:
 sequential, sample-at-a-time FTRL exactly as the reference's single-threaded
 semantics (reference: src/model/ftrl_model.cpp, src/model/fm.cpp,
-src/model/ffm.cpp).  Used to prove the batched TPU step reproduces the
+src/model/ffm.cpp).  Used to prove the batched device step reproduces the
 reference trajectory at batch size 1.
 """
 
@@ -55,7 +55,7 @@ class Oracle:
         self.vec_z = np.zeros((n_feats, d), np.float32)
         self.vec_init = vec_init  # [n_feats, d] or None
 
-    # weights derived exactly like the TPU build
+    # weights derived exactly like the batched build
     def _lin_w(self, ids):
         return closed_form(self.lin_n[ids], self.lin_z[ids], *self.hp)
 
@@ -117,7 +117,7 @@ class Oracle:
                 self.vec_z[i] += gv - sv * v[t]
                 self.vec_n[i] += gv * gv
         elif self.mt == "FFM":
-            # batched-within-sample semantics (matches the TPU build): grads on
+            # batched-within-sample semantics (matches the batched build): grads on
             # each slot summed over partners before one accumulator step.
             m = len(ids)
             v = np.stack([self._vec_w(i) for i in ids]).reshape(

@@ -1,6 +1,6 @@
 """tools/bench_multichip.py must run a 2-device shape end to end.
 
-VERDICT r04 #2: the runnable multi-device throughput tier.  Subprocess
+The runnable multi-device throughput tier.  Subprocess
 (the tool forces its own virtual device count before importing jax);
 numbers are CPU-virtual — the assertions are about plumbing and the
 accounting contract, not speed.

@@ -361,7 +361,7 @@ def test_cli_auto_resume(tmp_path, capsys):
 # ------------------------------------------- compatibility validation (r4)
 def test_resume_mismatched_config_raises(tmp_path):
     """A checkpoint resumed under different model-defining flags must fail
-    with the named error, not an opaque XLA shape error (VERDICT r3 #2)."""
+    with the named error, not an opaque XLA shape error."""
     from ftrl_ffm_tpu.cli import main
     from ftrl_ffm_tpu.io.checkpoint import IncompatibleStateError
 
@@ -474,7 +474,7 @@ def test_import_reference_text_model_validation(tmp_path):
 def test_cli_text_model_roundtrip(tmp_path, capsys):
     """--export_reference_text_model / --import_reference_text_model: the
     CLI twins of the FFM plain-text format (reference src/model/ffm.cpp:
-    161-200), VERDICT r3 #7.  Weights must survive the round trip."""
+    161-200).  Weights must survive the round trip."""
     from ftrl_ffm_tpu.cli import main
     from ftrl_ffm_tpu.config import Config
     from ftrl_ffm_tpu.train import Trainer

@@ -1,4 +1,5 @@
-"""Pallas fused FFM kernel == XLA formulation (interpret mode on CPU)."""
+"""Fused FFM kernels (Pallas, Triton route) == the XLA formulation, run in
+interpret mode on the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +27,7 @@ def test_fused_kernel_matches_xla(b, f, c, k):
 
     logits, gg2 = ffm_fused_logits_grads(
         v.reshape(b * f, e), fields, vals, lin, y, sw, c, k,
-        compute_grads=True, block_b=8, interpret=True,
+        interpret=True,
     )
     g = gg2[:, :e].reshape(b, f, e)
     g2 = gg2[:, e:].reshape(b, f, e)
@@ -53,7 +54,7 @@ def test_fused_kernel_padding_inert():
     sw = jnp.zeros((b,), jnp.float32)      # all samples padded
     logits, gg2 = ffm_fused_logits_grads(
         v.reshape(b, -1).reshape(b * f, c * k), fields, vals, lin, y, sw, c, k,
-        block_b=8, interpret=True,
+        interpret=True,
     )
     assert float(jnp.abs(gg2).sum()) == 0.0
     np.testing.assert_allclose(np.asarray(logits), 0.0, atol=1e-7)
@@ -71,7 +72,7 @@ def test_inference_kernel_matches_xla():
     lin = jnp.asarray(rng.normal(size=(b,)).astype(np.float32) * 0.1)
     ref, _ = ffm_logits_and_grads(v, fields, vals, lin, c, k, False)
     got = ffm_fused_logits(
-        v.reshape(b * f, e), fields, vals, lin, c, k, block_b=8, interpret=True
+        v.reshape(b * f, e), fields, vals, lin, c, k, interpret=True
     )
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-5, atol=1e-6)
 
@@ -89,7 +90,7 @@ def test_fused_kernel_bf16_payload_close_to_f32():
     y = jnp.asarray((rng.random(b) > 0.5).astype(np.float32))
     sw = jnp.ones((b,), jnp.float32)
 
-    common = dict(compute_grads=True, block_b=8, interpret=True)
+    common = dict(interpret=True)
     logits32, gg2_32 = ffm_fused_logits_grads(
         v.reshape(b * f, e), fields, vals, lin, y, sw, c, k, **common
     )
@@ -150,7 +151,7 @@ def test_fused_kernel_aug_lane_payload():
     y = jnp.asarray((rng.random(b) > 0.5).astype(np.float32))
     sw = jnp.asarray((rng.random(b) > 0.2).astype(np.float32))
 
-    common = dict(compute_grads=True, block_b=8, interpret=True)
+    common = dict(interpret=True)
     logits0, gg2 = ffm_fused_logits_grads(
         v.reshape(b * f, e), fields, vals, lin, y, sw, c, k, **common
     )
@@ -225,17 +226,11 @@ def test_dense_update2_aug_matches_separate_updates():
 def test_train_step_pallas_aug_matches_xla(monkeypatch):
     """Full train_step through the fused aug path (interpret mode) ==
     the pure-XLA path, several chained steps."""
-    import functools
-
-    import ftrl_ffm_tpu.ops.ffm_pallas as fp
+    from tests.common import interpret_kernels
     from ftrl_ffm_tpu.config import Config
     from ftrl_ffm_tpu.models import Batch, make_model
 
-    for fn_name in ("ffm_fused_logits_grads", "ffm_fused_logits"):
-        orig = getattr(fp, fn_name)
-        monkeypatch.setattr(
-            fp, fn_name, functools.partial(orig, interpret=True)
-        )
+    interpret_kernels(monkeypatch)
 
     rng = np.random.default_rng(7)
     b, c, k, r, f = 16, 4, 8, 64, 4
@@ -276,35 +271,72 @@ def test_train_step_pallas_aug_matches_xla(monkeypatch):
     )
 
 
-def test_closed_form_pass_pallas_matches_fori_loop():
-    """ops/ftrl_pallas.py streaming pass == ftrl.py's fori_loop form
-    (interpret mode on CPU)."""
-    import jax.numpy as jnp
-
-    from ftrl_ffm_tpu.ftrl import FtrlParams, dense_ftrl_update_inplace
-    from ftrl_ffm_tpu.ops.ftrl_pallas import closed_form_pass_pallas
+def test_closed_form_pass_matches_dense_update():
+    """ftrl.py::closed_form_pass (the in-place update's whole-table XLA
+    fusion) on z' = z + sum_g and A = sum_g2 == the two-accumulator dense
+    update, and leaves untouched rows bit-exact."""
+    from ftrl_ffm_tpu.ftrl import FtrlParams, closed_form_pass, dense_ftrl_update
 
     rng = np.random.default_rng(3)
     r, d, nnz = 64, 128, 96
     p = FtrlParams(alpha=0.05, beta=1.0, l1=0.1, l2=1.0)
     n = jnp.asarray(np.abs(rng.normal(0, 1, (r, d))).astype(np.float32))
+    n = n.at[:8].set(0.0)  # never-touched rows
     z = jnp.asarray(rng.normal(0, 1, (r, d)).astype(np.float32))
     w = jnp.asarray(rng.normal(0, 0.1, (r, d)).astype(np.float32))
-    ids = jnp.asarray(rng.integers(0, r + 1, nnz).astype(np.int32))  # incl. drop
+    ids = jnp.asarray(rng.integers(8, r + 1, nnz).astype(np.int32))  # incl. drop
     g = jnp.asarray(rng.normal(0, 1, (nnz, d)).astype(np.float32))
     g2 = g * g
 
-    ref = dense_ftrl_update_inplace(n, z, w, ids, g, g2, p, block_rows=16)
-
+    ref = dense_ftrl_update(n, z, w, ids, g, g2, p)
     zp = z.at[ids].add(g, mode="drop")
     a = jnp.zeros_like(n).at[ids].add(g2, mode="drop")
-    got = closed_form_pass_pallas(n, zp, w, a, p, interpret=True)
-    assert got is not None
+    got = closed_form_pass(n, zp, w, a, p)
     for name, x, y in zip(("n", "z", "w"), got, ref):
         np.testing.assert_allclose(
-            np.asarray(x), np.asarray(y), rtol=1e-6, atol=1e-7,
+            np.asarray(x), np.asarray(y), rtol=1e-6, atol=1e-6,
             err_msg=f"closed-form pass mismatch in {name}",
         )
+    for x, y in zip(got, (n, z, w)):
+        np.testing.assert_array_equal(np.asarray(x)[:8], np.asarray(y)[:8])
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (33, 640), (5000,)])
+def test_scatter_sum_matches_plain_scatter(shape):
+    """ftrl.py::scatter_sum (the in-place update's accumulator, behind its
+    barriers) == a plain scatter-add into zeros, dropping ids past the
+    end, for 2-D tables and a 1-D one."""
+    from ftrl_ffm_tpu.ftrl import scatter_sum
+
+    rng = np.random.default_rng(3)
+    r = shape[0]
+    ids = jnp.asarray(rng.integers(0, r + 1, 3 * r).astype(np.int32))  # incl. drop
+    upd = jnp.asarray(rng.normal(0, 1, (3 * r,) + shape[1:]).astype(np.float32))
+    want = np.zeros(shape, np.float32)
+    keep = np.asarray(ids) < r
+    np.add.at(want, np.asarray(ids)[keep], np.asarray(upd)[keep])
+    got = jax.jit(scatter_sum, static_argnums=0)(shape, ids, upd)
+    assert got.shape == shape and got.dtype == jnp.float32
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-6, atol=1e-6)
+
+
+def test_inplace_update_lowers_past_int32_elements():
+    """A table past 2^31 elements (3.4M rows x 640, the per-card shard of a
+    sharded 16M-row model) traces and lowers: no index math of the in-place
+    update is int32-bound.  Lowering only; nothing is allocated."""
+    from ftrl_ffm_tpu.ftrl import FtrlParams, dense_ftrl_update_inplace
+
+    r, d, nnz = 3_400_000, 640, 1024
+    assert r * d > 2**31
+    tab = jax.ShapeDtypeStruct((r, d), jnp.float32)
+    pay = jax.ShapeDtypeStruct((nnz, d), jnp.float32)
+    ids = jax.ShapeDtypeStruct((nnz,), jnp.int32)
+    f = jax.jit(dense_ftrl_update_inplace, static_argnums=6,
+                donate_argnums=(0, 1, 2))
+    lowered = f.lower(tab, tab, tab, ids, pay, pay, FtrlParams())
+    outs = jax.tree.leaves(lowered.out_info)
+    assert [o.shape for o in outs] == [(r, d)] * 3
+
 
 
 @pytest.mark.parametrize(
@@ -340,7 +372,7 @@ def test_fused_kernel_shape_sweep(b, f, c, k, aug):
 
     logits, gg2 = ffm_fused_logits_grads(
         v.reshape(b * f, e), fields, vals, lin, y, sw, c, k,
-        compute_grads=True, block_b=8, interpret=True, aug_lane=aug,
+        interpret=True, aug_lane=aug,
     )
     g = gg2[:, :e].reshape(b, f, e)
     np.testing.assert_allclose(

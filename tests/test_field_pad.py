@@ -50,18 +50,11 @@ def test_padded_trajectory_matches_unpadded(use_pallas, tmp_path, monkeypatch):
     """Training with field_pad forced off == training with padding on
     (C=39, K=16 so padding engages), several chained steps, both kernel
     paths."""
-    import functools
-
     from ftrl_ffm_tpu.models import Batch, make_model
+    from tests.common import interpret_kernels
 
     if use_pallas == "interpret":
-        import ftrl_ffm_tpu.ops.ffm_pallas as fp
-
-        for fn_name in ("ffm_fused_logits_grads", "ffm_fused_logits"):
-            orig = getattr(fp, fn_name)
-            monkeypatch.setattr(
-                fp, fn_name, functools.partial(orig, interpret=True)
-            )
+        interpret_kernels(monkeypatch)
 
     rng = np.random.default_rng(11)
     b, c, k, r, f = 16, 39, 16, 128, 6
@@ -81,15 +74,7 @@ def test_padded_trajectory_matches_unpadded(use_pallas, tmp_path, monkeypatch):
     st_nopad = m_nopad.init()
     monkeypatch.undo()
     if use_pallas == "interpret":
-        import functools as _ft
-
-        import ftrl_ffm_tpu.ops.ffm_pallas as fp
-
-        for fn_name in ("ffm_fused_logits_grads", "ffm_fused_logits"):
-            orig = getattr(fp, fn_name)
-            monkeypatch.setattr(
-                fp, fn_name, _ft.partial(orig, interpret=True)
-            )
+        interpret_kernels(monkeypatch)
     m_pad = make_model(cfg_pad)
     st_pad = m_pad.init()
     assert st_pad.vec_n.shape == (r, 640)
@@ -205,11 +190,11 @@ def test_sharded_padded_matches_single_device(mesh_shape, lookup_mode):
 
 def test_linear_mirror_invariant_all_paths(monkeypatch):
     """vec lane (0, n_fields) mirrors the linear table after training
-    through (a) the XLA fallback, (b) the Pallas aug path (interpret),
+    through (a) the XLA path, (b) the fused-kernel aug path (interpret),
     (c) the forced in-place huge-table path."""
-    import functools
-
     import jax.numpy as jnp
+
+    from tests.common import interpret_kernels
 
     import ftrl_ffm_tpu.models.base as base_mod
     from ftrl_ffm_tpu.models import Batch, make_model
@@ -221,13 +206,7 @@ def test_linear_mirror_invariant_all_paths(monkeypatch):
 
     def run(use_pallas, update_mode="auto", interpret=False):
         if interpret:
-            import ftrl_ffm_tpu.ops.ffm_pallas as fp
-
-            for fn_name in ("ffm_fused_logits_grads", "ffm_fused_logits"):
-                orig = getattr(fp, fn_name)
-                monkeypatch.setattr(
-                    fp, fn_name, functools.partial(orig, interpret=True)
-                )
+            interpret_kernels(monkeypatch)
         cfg = Config(
             model_type="FFM", n_fields=c, n_feats=r, n_factors=k,
             batch_size=b, max_nnz=f, use_pallas=use_pallas,

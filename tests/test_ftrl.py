@@ -207,7 +207,7 @@ def test_select_ftrl_update_heuristic():
 
 def test_combined_payload_updates_match_split():
     """dense_ftrl_update2 / sparse_ftrl_update2 (single combined (g||g^2)
-    scatter payload, the TPU hot path) == the split-form oracle updates."""
+    scatter payload, the fused-kernel hot path) == the split-form oracle updates."""
     import jax.numpy as jnp
 
     from ftrl_ffm_tpu.ftrl import (
@@ -273,40 +273,35 @@ def test_inplace_update_matches_dense2():
     np.testing.assert_allclose(np.asarray(cw), np.asarray(ew), rtol=1e-5, atol=1e-7)
 
 
-def test_inplace_update_chunked_blocks_and_tail():
-    """The chunked closed-form pass (block_rows < R, non-dividing: full
-    blocks + static tail) is bit-identical to the single-block pass."""
+@pytest.mark.parametrize("shape", [(41, 6), (7, 640), (1, 3)])
+def test_inplace_update_whole_table_pass(shape):
+    """The in-place update's single whole-table closed-form pass: any row
+    count (no block decomposition to divide it), bit-deterministic across
+    calls, and identical to the dense combined oracle."""
     import jax.numpy as jnp
 
-    from ftrl_ffm_tpu.ftrl import dense_ftrl_update_inplace
+    from ftrl_ffm_tpu.ftrl import dense_ftrl_update2, dense_ftrl_update_inplace
 
     rng = np.random.default_rng(13)
-    R, D, N = 41, 6, 64
+    R, D = shape
+    N = 64
     n_tab = jnp.asarray(np.abs(rng.normal(size=(R, D))).astype(np.float32))
     z_tab = jnp.asarray(rng.normal(size=(R, D)).astype(np.float32))
     w_tab = jnp.asarray(rng.normal(size=(R, D)).astype(np.float32))
     ids = jnp.asarray(rng.integers(0, R + 3, N).astype(np.int32))
     g = jnp.asarray(rng.normal(size=(N, D)).astype(np.float32))
 
-    base = dense_ftrl_update_inplace(n_tab, z_tab, w_tab, ids, g, g * g, P)
-    for br in (16, 40, 41, 7):  # tails of 9, 1, 0, 6 rows
-        out = dense_ftrl_update_inplace(
-            n_tab, z_tab, w_tab, ids, g, g * g, P, block_rows=br
+    out = dense_ftrl_update_inplace(n_tab, z_tab, w_tab, ids, g, g * g, P)
+    again = dense_ftrl_update_inplace(n_tab, z_tab, w_tab, ids, g, g * g, P)
+    for got, want in zip(again, out):
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    ref = dense_ftrl_update2(
+        n_tab, z_tab, w_tab, ids, jnp.concatenate([g, g * g], axis=-1), P
+    )
+    for got, want in zip(out, ref):
+        np.testing.assert_allclose(
+            np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-6
         )
-        # ULP-level tolerance only: the fori_loop body is traced+fused
-        # (FMA) while the static tail runs op-by-op, so different
-        # block_rows choices are equivalent-not-bitwise; a fixed
-        # block_rows (one compiled program) stays bit-deterministic,
-        # which is what test_determinism.py pins.
-        for got, want in zip(out, base):
-            np.testing.assert_allclose(
-                np.asarray(got), np.asarray(want), rtol=2e-6, atol=1e-6
-            )
-        again = dense_ftrl_update_inplace(
-            n_tab, z_tab, w_tab, ids, g, g * g, P, block_rows=br
-        )
-        for got, want in zip(again, out):
-            np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 def test_select_update_kind_thresholds():

@@ -99,7 +99,7 @@ def test_auc_perfect_and_random():
 
 
 def test_kahan_accumulation_survives_adversarial_magnitudes():
-    """VERDICT r3 #4: f32 chaining demonstrably drifts at pass-level
+    """f32 chaining demonstrably drifts at pass-level
     magnitudes (a late-pass 1e8 accumulator swallows per-batch increments
     entirely), the compensated path doesn't — and XLA's jit must not
     algebraically simplify the compensation away."""
@@ -140,7 +140,7 @@ def test_train_epoch_pass_level_f64_accumulation():
 
 
 def test_binned_auc_error_bound_adversarial():
-    """VERDICT r04 #5: the histogram AUC's a-posteriori bound
+    """The histogram AUC's a-posteriori bound
     (StreamingAUC.error_bound: 0.5·Σ pos_b·neg_b / (P·N) — only within-bin
     pairs can be mis-ranked, by at most 0.5 each) must hold on adversarial
     score distributions clustered near the threshold, where the histogram
@@ -203,7 +203,7 @@ def test_binned_auc_error_bound_adversarial():
     ],
 )
 def test_auc_mode_exact_end_to_end(tmp_path, kw):
-    """--auc_mode exact (VERDICT r04 #5): Trainer.evaluate computes the
+    """--auc_mode exact: Trainer.evaluate computes the
     exact rank AUC — it must (a) match exact_auc on the model's own scores
     and (b) sit within the binned twin's a-posteriori error bound; eval
     loss is identical in both modes (same math, different AUC path)."""

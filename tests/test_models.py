@@ -1,4 +1,4 @@
-"""Model parity tests: the batched TPU step at B=1 reproduces the sequential
+"""Model parity tests: the batched device step at B=1 reproduces the sequential
 per-sample reference algorithm (via the numpy oracle) for LR / FM / FFM."""
 
 import jax.numpy as jnp

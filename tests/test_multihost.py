@@ -342,7 +342,7 @@ def test_two_process_route_sharded_matches_single(tmp_path):
 
 
 def test_four_process_route_inplace_matches_single(tmp_path):
-    """VERDICT r3 #5: the production scaling shape executed as a REAL
+    """The production scaling shape executed as a REAL
     4-process jax.distributed run — a (1, 4) mesh spanning 4 processes
     (one device each), unique-id routed lookups, in-place huge-shard
     update — must match the single-process run's losses AND final state.

@@ -295,7 +295,7 @@ def _assert_compact_equal(a, b, ctx):
 def test_native_compact_matches_numpy(tmp_path, monkeypatch, model_type,
                                       n_feats, n_fields):
     """ftrl_compact_batch must be byte-identical to the numpy _compact
-    across every encoding branch (VERDICT r3 #1's test criterion)."""
+    across every encoding branch."""
     import ftrl_ffm_tpu.native as native
 
     if native.lib() is None:

@@ -1,6 +1,6 @@
 """Sharded step ((data, model) mesh) must match the single-device step.
 
-Runs on the virtual 8-device CPU mesh from conftest.py — the TPU-free
+Runs on the virtual 8-device CPU mesh from conftest.py — the accelerator-free
 equivalent of a multi-chip slice (SURVEY §4's "new" multi-host test tier).
 """
 
@@ -295,7 +295,7 @@ def _zipf_batch(rng, b, f, n_feats, n_fields, s=1.1):
 
 @pytest.mark.parametrize("model_type", ["LR", "FFM"])
 def test_route_zipf_skew_exact_at_default_capacity(model_type):
-    """VERDICT round-2 #1 'done' criterion: on Zipf-skewed (s=1.1) ids at
+    """On Zipf-skewed (s=1.1) ids at
     the DEFAULT route_capacity, route-mode losses/state equal the
     replicate-mode (exact) ones and zero occurrences are dropped —
     matching the reference's unconditional per-occurrence updates
@@ -461,7 +461,7 @@ def _compiled_collectives(cfg, mesh_shape):
 
 
 def test_route_mesh_has_no_table_sized_collective():
-    """VERDICT r3 #3(a): the compiled (1, N) route step must have NO
+    """The compiled (1, N) route step must have NO
     communicating collective of O(rows_local * E) — the structural claim
     behind tools/scaling_model.py's '(1, N) meshes have no O(R) ICI leg'.
     All-to-all volume must equal the occurrence-proportional route-buffer
@@ -496,7 +496,7 @@ def test_route_mesh_has_no_table_sized_collective():
 
 
 def test_hybrid_mesh_accumulator_allreduce_matches_scaling_model():
-    """VERDICT r3 #3(b): the (D, M) hybrid's dense2-regime step must carry
+    """The (D, M) hybrid's dense2-regime step must carry
     a communicating all-reduce of EXACTLY the scaling model's O(R/M)
     volume term (tools/scaling_model.py::model_step's psum_acc leg:
     r_loc * 2E * 4 bytes) — the leg that forbids D > 1 at production

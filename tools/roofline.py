@@ -1,16 +1,15 @@
-"""Bytes-moved roofline model for one FTRL train step (see BASELINE.md).
+"""Bytes-moved roofline model for one FTRL train step.
 
-Prints the per-pass HBM traffic of the current step design and the implied
-step-time floor on a given HBM bandwidth, so each round's measured step can
-be judged against physics, not only against the C++ baseline
-(reference baseline protocol: BASELINE.md; step design: ftrl.py module
-docstring + ops/ffm_pallas.py).
+Prints the per-pass device-memory traffic of the current step design and
+the implied step-time floor at the device's published bandwidth
+(tools/peaks.py), so a measured step can be judged against physics (step
+design: ftrl.py module docstring + ops/ffm_pallas.py).
 
 Usage:
-    python tools/roofline.py [--batch 8192] [--nnz 39] [--n_fields 39]
+    python tools/roofline.py [--batch 16384] [--nnz 39] [--n_fields 39]
         [--n_factors 16] [--n_feats 100000] [--model FFM]
-        [--update dense2|inplace|sparse2] [--hbm_gbs 819]
-        [--measured_ms 0]
+        [--update dense2|inplace|sparse2]
+        [--device "NVIDIA H100 80GB HBM3"] [--measured_ms 0]
 
 The model (f32 tables; nnz = occurrences per step = batch * nnz_per_sample):
   v-row gather      read E-wide rows per occurrence + write [nnz, E]
@@ -27,6 +26,12 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from peaks import peaks  # noqa: E402
 
 
 def unique_rows(n_rows: int, nnz: int) -> float:
@@ -99,14 +104,15 @@ def step_bytes(
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=8192)
+    ap.add_argument("--batch", type=int, default=16384)
     ap.add_argument("--nnz", type=int, default=0, help="nnz per sample (default n_fields)")
     ap.add_argument("--n_fields", type=int, default=39)
     ap.add_argument("--n_factors", type=int, default=16)
     ap.add_argument("--n_feats", type=int, default=100_000)
     ap.add_argument("--model", default="FFM", choices=["LR", "FM", "FFM"])
     ap.add_argument("--update", default="dense2", choices=["dense2", "inplace", "sparse2"])
-    ap.add_argument("--hbm_gbs", type=float, default=819.0, help="HBM GB/s (v5e: 819)")
+    ap.add_argument("--device", default="NVIDIA H100 80GB HBM3",
+                    help="JAX device_kind whose published peaks to use")
     ap.add_argument("--measured_ms", type=float, default=0.0)
     args = ap.parse_args()
 
@@ -122,10 +128,11 @@ def main() -> None:
     )
     for name, byts in passes.items():
         print(f"  {name:58s} {byts / 1e9:7.3f} GB")
-    floor_ms = total / (args.hbm_gbs * 1e9) * 1e3
+    hbm = peaks(args.device)["hbm_bytes_per_s"]
+    floor_ms = total / hbm * 1e3
     print(f"  {'TOTAL':58s} {total / 1e9:7.3f} GB")
     print(
-        f"floor @ {args.hbm_gbs:.0f} GB/s: {floor_ms:.2f} ms/step "
+        f"floor @ {hbm / 1e9:.0f} GB/s ({args.device}): {floor_ms:.2f} ms/step "
         f"= {args.batch / floor_ms * 1e3:,.0f} ex/s"
     )
     if args.measured_ms:
